@@ -1,4 +1,4 @@
-"""Build the 100M-point index bundle on one TPU chip (DiskANN-style sharded
+"""Build the 100M-point index bundle on one device (DiskANN-style sharded
 Vamana, formats/bigbuild.py) and write the full on-disk bundle that
 BaseVariantSearcher + bench.py consume.
 
@@ -23,17 +23,18 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-from bang_tpu.utils.cache import enable_persistent_cache
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from bang_jax.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()
 import jax
 
-from bang_tpu.formats import bigbuild
-from bang_tpu.formats.bin_io import save_bin, save_truthset
-from bang_tpu.formats.graph import GraphIndex, save_graph_index
-from bang_tpu.formats.pq import save_pq, PQData
-from bang_tpu.formats import synthetic
+from bang_jax.formats import bigbuild
+from bang_jax.formats.bin_io import save_bin, save_truthset
+from bang_jax.formats.graph import GraphIndex, save_graph_index
+from bang_jax.formats.pq import save_pq, PQData
+from bang_jax.formats import synthetic
 
 N = int(os.environ.get("B100_N", 100_000_000))
 D = 128
@@ -44,7 +45,7 @@ N_SHARDS = int(os.environ.get("B100_SHARDS", 20))
 L_BUILD = int(os.environ.get("B100_LBUILD", 24))
 N_PASSES = int(os.environ.get("B100_PASSES", 1))
 BATCH = int(os.environ.get("B100_BATCH", 16384))
-CACHE = os.environ.get("B100_CACHE", "/root/repo/bench_data")
+CACHE = os.environ.get("B100_CACHE", os.path.join(REPO, "bench_data"))
 PREFIX = os.path.join(CACHE, f"synthg_v1_n{N}_d{D}_r{R}_m{M}_shardvamana")
 CKPT = PREFIX + "_ckpt"
 os.makedirs(CKPT, exist_ok=True)
@@ -94,7 +95,7 @@ if not os.path.exists(PREFIX + "_gt.bin"):
     queries = np.clip(
         np.rint(base + rng.normal(0, 2.0, base.shape)), 0, 255
     ).astype(np.uint8)
-    log("computing exact int8 ground truth (chunked MXU)")
+    log("computing exact int8 ground truth (chunked int8 matmuls)")
     gt_ids, gt_dists = bigbuild.groundtruth_u8_streamed(gen, queries, 100)
     save_bin(PREFIX + "_query.bin", queries)
     save_truthset(PREFIX + "_gt.bin", gt_ids, gt_dists)
@@ -120,7 +121,7 @@ if not os.path.exists(adj_path):
     init_adj = init_deg = None
     WARM = os.environ.get("B100_WARM", "")
     if WARM:
-        from bang_tpu.formats.graph import load_metadata as _lm
+        from bang_jax.formats.graph import load_metadata as _lm
 
         wm = _lm(WARM + "_disk_metadata.bin")
         rec = np.dtype([("vec", np.uint8, wm.entry_len - 4 - 4 * wm.degree),

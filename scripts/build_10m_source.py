@@ -7,10 +7,12 @@ at the scale10m parameters (bench.py:737-740) so cached artifacts are
 byte-compatible with what the bench expects.
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-from bang_tpu.utils.cache import enable_persistent_cache
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from bang_jax.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()
 

@@ -1,11 +1,9 @@
-"""Build the HBM-budget-tuned 10M bundle: R=32 graph + m=32 PQ.
+"""Build the memory-budget-tuned 10M bundle: R=32 graph + m=32 PQ.
 
-Rationale (round 3, PROGRESS.md): the scattered PQ path at 10M is row-count
-bound — per iteration it gathers Q*beam*R tiny [m]-byte code rows at ~12 ns
-fixed per row (~15 ms/iter at Q=10K, R=64), regardless of the few useful
-bytes. The TPU-native fix is the neighbor-aligned flat nbr_codes layout
-(ONE [R*m]-byte row per parent), which needs N*R*m bytes of HBM: 40 GB at
-the R=64/m=64 build, but 10 GB at R=32/m=32 — the same RAM-budget knob
+Rationale: the scattered PQ path gathers Q*beam*R tiny [m]-byte code rows
+per iteration. The neighbor-aligned layouts (ONE row per parent) need
+N*R*m bytes of device memory: 40 GB at the R=64/m=64 build, but 10 GB at
+R=32/m=32 — the same RAM-budget knob
 DiskANN's `-B` flag turns (README.md:49: PQ chunks are chosen by memory
 budget, e.g. 74 chunks for SIFT1B on an 80 GB A100).
 
@@ -21,18 +19,19 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-from bang_tpu.utils.cache import enable_persistent_cache
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from bang_jax.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()
 
-from bang_tpu.formats import synthetic
-from bang_tpu.formats.accel import encode_pq_jax
-from bang_tpu.formats.graph import GraphIndex, load_metadata, save_graph_index
-from bang_tpu.formats.pq import save_pq
-from bang_tpu.formats.vamana import build_vamana_graph
+from bang_jax.formats import synthetic
+from bang_jax.formats.accel import encode_pq_jax
+from bang_jax.formats.graph import GraphIndex, load_metadata, save_graph_index
+from bang_jax.formats.pq import save_pq
+from bang_jax.formats.vamana import build_vamana_graph
 
-CACHE = "/root/repo/bench_data"
+CACHE = os.path.join(REPO, "bench_data")
 SRC = os.path.join(CACHE, "synth_v2_n10000000_d128_r64_m64_vamana")
 DST = os.path.join(CACHE, "synth_v2_n10000000_d128_r32_m32_vamana")
 R, M, L_BUILD, BATCH = 32, 32, 48, 16384

@@ -2,9 +2,9 @@
 
 scripts/build_10m_tuned.py derives this bundle from the R=64/m=64 source
 bundle (warm-started graph, shared vectors/queries/GT) — the cheaper path
-when the source exists. After a bench_data/ wipe, building the 43-minute
-source first just to derive the tuned bundle doubles the device time; this
-script builds the tuned bundle directly with bench.build_bundle.
+when the source exists. Without it, building the source first just to
+derive the tuned bundle doubles the device time; this script builds the
+tuned bundle directly with bench.build_bundle.
 
 Data compatibility: build_bundle's dataset/queries/GT depend only on
 (n, dim, seed, query_noise) — NOT on R/m — so this bundle's vectors,
@@ -12,14 +12,15 @@ queries and ground truth are byte-identical to what the source-bundle path
 produces, and a later source rebuild stays consistent.
 
 The tuned point is the scale-matched headline comparable (reference:
-SIFT1B on A100 = 117,647 QPS @ 0.9 recall, Cost_Analysis.pdf p.2; this
-layout's round-4 row: 119.3K pipelined @ recall 90.16, SCALE10M_TUNED_r04).
+SIFT1B on A100 = 117,647 QPS @ 0.9 recall, Cost_Analysis.pdf p.2).
 """
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-from bang_tpu.utils.cache import enable_persistent_cache
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from bang_jax.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()
 

@@ -2,10 +2,9 @@
 sections the fresh run SKIPPED (time budget) or errored are carried from the
 earlier run with a `carried_from` provenance marker.
 
-Round-4 use: the chain's full bench (first to see the 10M bundles) spends its
-budget on the 10M rows and may skip breadth/streaming, which the same-day
-morning run already measured on the same code + chip. The refreshed
-BENCH_r04_builder.json must not silently LOSE those rows.
+Use: a full bench that spends its budget on the 10M rows may skip the
+breadth/streaming rows that an earlier run on the same code and card already
+measured; the merged JSON must not silently LOSE those rows.
 
 Usage: python scripts/merge_bench_json.py fresh.json earlier.json out.json
 """

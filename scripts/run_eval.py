@@ -1,6 +1,5 @@
-"""One parameterized evaluation runner (replaces the run_100m*.py /
-run_10m*.py one-off scripts — round-3 verdict asked for a single audited
-code path for large-scale evidence).
+"""One parameterized evaluation runner: a single audited code path for
+large-scale evidence.
 
 Sweeps one bundle with one engine variant over an L grid via bench.py's
 measurement machinery (stage timers, recall with distance-tie expansion,
@@ -12,7 +11,7 @@ Examples:
       --prefix bench_data/synth_v2_n10000000_d128_r32_m32_vamana \
       --queries-from bench_data/synth_v2_n10000000_d128_r64_m64_vamana \
       --variant inmemory --grid 14 16 20 25 30 40 60 90 --refine \
-      --neighbor-codes --out SCALE10M_TUNED_r04.json
+      --neighbor-codes --out bench_data/scale10m_tuned.json
 
   # 100M R=64 Base sweep + sampled-entry probe
   python scripts/run_eval.py \
@@ -28,13 +27,14 @@ import sys
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-from bang_tpu.utils.cache import enable_persistent_cache
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+from bang_jax.utils.cache import enable_persistent_cache
 
 enable_persistent_cache()
 
 import bench
-from bang_tpu.formats.bin_io import load_bin_auto, load_truthset
+from bang_jax.formats.bin_io import load_bin_auto, load_truthset
 
 
 def main():
@@ -111,7 +111,7 @@ def main():
 
     meta_path = prefix + "_disk_metadata.bin"
     if os.path.exists(meta_path):
-        from bang_tpu.formats.graph import load_metadata
+        from bang_jax.formats.graph import load_metadata
 
         m = load_metadata(meta_path)
         row["n_points"] = int(m.n)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from bang_tpu.formats import synthetic
-from bang_tpu.formats.accel import (
+from bang_jax.formats import synthetic
+from bang_jax.formats.accel import (
     build_knn_graph_jax,
     compute_groundtruth_jax,
     encode_pq_jax,
@@ -52,12 +52,12 @@ def test_pruned_knn_graph_navigates_better():
     tight budget (the pruning keeps diverse/long edges)."""
     import jax.numpy as jnp
 
-    from bang_tpu.formats.accel import build_pruned_knn_graph_jax
-    from bang_tpu.formats.graph import GraphIndex
-    from bang_tpu.models.index import build_device_index
-    from bang_tpu.models.exactdistance import search_exact
-    from bang_tpu.utils.config import SearchParams
-    from bang_tpu.utils.recall import calculate_recall
+    from bang_jax.formats.accel import build_pruned_knn_graph_jax
+    from bang_jax.formats.graph import GraphIndex
+    from bang_jax.models.index import build_device_index
+    from bang_jax.models.exactdistance import search_exact
+    from bang_jax.utils.config import SearchParams
+    from bang_jax.utils.recall import calculate_recall
 
     data = synthetic.make_clustered_data(8000, 32, n_clusters=40, seed=9)
     rng = np.random.default_rng(10)

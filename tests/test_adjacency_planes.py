@@ -1,16 +1,14 @@
 """Byte-plane adjacency (ops/adjacency) + the chunked neighbor-codes build.
 
-Why these exist: TPU HBM lane padding (i32 minor R<=64 pads to 128) made the
-naive codes[adj] materialization AND the resident i32 adjacency OOM the
-tuned-10M bundle (41 GB intermediate vs 16 GB HBM) — see models/index.py.
-Reference behavior covered: the adjacency fetch of the traversal loop
+The neighbor-codes layout is built in row blocks (models/index.py) and its
+adjacency is stored as byte planes. Reference behavior covered: the adjacency fetch of the traversal loop
 (BANG_Base/bang_search.cu:701-760).
 """
 
 import numpy as np
 import jax.numpy as jnp
 
-from bang_tpu.ops.adjacency import (
+from bang_jax.ops.adjacency import (
     PlaneAdjacency,
     decode_adj_planes,
     pack_adj_planes,
@@ -43,9 +41,9 @@ def test_plane_adjacency_matches_table_gather():
 def test_chunked_neighbor_codes_build_matches_naive():
     """The blocked build (incl. the overlapping tail block when n % blk != 0)
     must equal the naive codes[adj] materialization."""
-    from bang_tpu.models.index import build_device_index
-    from bang_tpu.formats.graph import GraphIndex
-    from bang_tpu.formats.pq import PQData
+    from bang_jax.models.index import build_device_index
+    from bang_jax.formats.graph import GraphIndex
+    from bang_jax.formats.pq import PQData
 
     rng = np.random.default_rng(5)
     n, d, r, m = 4096 + 1111, 16, 8, 4  # NOT a multiple of the 4096 block
@@ -58,7 +56,7 @@ def test_chunked_neighbor_codes_build_matches_naive():
     pq = PQData(pivots=pivots, centroid=np.zeros(d, np.float32),
                 chunk_offsets=offs, codes=codes)
 
-    import bang_tpu.models.index as index_mod
+    import bang_jax.models.index as index_mod
 
     # force multiple blocks: shrink the block floor via monkeypatching max
     idx = build_device_index(
@@ -74,9 +72,9 @@ def test_chunked_neighbor_codes_build_matches_naive():
 
 def test_chunked_build_overlapping_tail(monkeypatch):
     """Tail handling at a small forced block size (n % blk != 0)."""
-    from bang_tpu.models import index as index_mod
-    from bang_tpu.formats.graph import GraphIndex
-    from bang_tpu.formats.pq import PQData
+    from bang_jax.models import index as index_mod
+    from bang_jax.formats.graph import GraphIndex
+    from bang_jax.formats.pq import PQData
 
     rng = np.random.default_rng(6)
     n, d, r, m = 103, 8, 4, 2

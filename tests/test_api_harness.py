@@ -4,11 +4,11 @@
 import numpy as np
 import pytest
 
-from bang_tpu.api import BANGSearch
-from bang_tpu.formats import load_bin, load_truthset
-from bang_tpu.formats.preprocess import preprocess_queries_mips
-from bang_tpu.harness import driver
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.api import BANGSearch
+from bang_jax.formats import load_bin, load_truthset
+from bang_jax.formats.preprocess import preprocess_queries_mips
+from bang_jax.harness import driver
+from bang_jax.utils.recall import calculate_recall
 
 
 @pytest.mark.parametrize("variant", ["inmemory", "exactdistance", "base"])
@@ -163,13 +163,13 @@ def test_facade_oversized_batch_chunks(tiny_index):
     compiled-shape chunks instead of triggering a silent recompile."""
     import numpy as np
 
-    from bang_tpu.api import BANGSearch
+    from bang_jax.api import BANGSearch
 
     s = BANGSearch(variant="inmemory")
     s.bang_load(tiny_index["prefix"])
     s.bang_set_searchparams(10, 24)
     s.bang_alloc(32)
-    from bang_tpu.formats.bin_io import load_bin_auto
+    from bang_jax.formats.bin_io import load_bin_auto
 
     queries = load_bin_auto(tiny_index["prefix"] + "_query.bin", np.float32)
     queries = queries[:80].astype(np.float32)

@@ -4,12 +4,12 @@ expansion budget, fewer sequential iterations, duplicate-free results."""
 import numpy as np
 import pytest
 
-from bang_tpu.formats import load_bin, load_truthset
-from bang_tpu.models.index import device_index_from_files
-from bang_tpu.models.exactdistance import search_exact
-from bang_tpu.models.inmemory import search_inmemory
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.formats import load_bin, load_truthset
+from bang_jax.models.index import device_index_from_files
+from bang_jax.models.exactdistance import search_exact
+from bang_jax.models.inmemory import search_inmemory
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 @pytest.fixture(scope="module")
@@ -22,8 +22,9 @@ def loaded(tiny_index):
 
 
 @pytest.mark.parametrize("beam", [2, 4])
-def test_beam_exact_recall(loaded, beam):
-    index, queries, gt_ids, gt_dists = loaded
+def test_beam_exact_recall(loaded, tiny_index, beam):
+    _, queries, gt_ids, gt_dists = loaded
+    index = device_index_from_files(tiny_index["prefix"], variant="exactdistance")
     ids, _, stats = search_exact(index, queries, SearchParams(L=64, k=10, beam_width=beam))
     recall = calculate_recall(gt_ids, np.asarray(ids), 10, gt_dists)
     assert recall >= 95.0, f"beam={beam} recall: {recall}"

@@ -11,7 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from bang_tpu.formats import bigbuild
+from bang_jax.formats import bigbuild
 
 
 @pytest.fixture(scope="module")
@@ -69,11 +69,11 @@ def test_sharded_build_end_to_end(gen):
     """Merged sharded graph is navigable: exactdistance search reaches >=80%
     recall@10 on the toy dataset (single-graph builds score ~95+; the
     overlapped-merge pays a small quality tax, as DiskANN's does)."""
-    from bang_tpu.models.index import build_device_index
-    from bang_tpu.formats.graph import GraphIndex
-    from bang_tpu.models.exactdistance import search_exact
-    from bang_tpu.utils.config import SearchParams
-    from bang_tpu.utils.recall import calculate_recall
+    from bang_jax.models.index import build_device_index
+    from bang_jax.formats.graph import GraphIndex
+    from bang_jax.models.exactdistance import search_exact
+    from bang_jax.utils.config import SearchParams
+    from bang_jax.utils.recall import calculate_recall
 
     adj, degrees, assignment = bigbuild.build_sharded_vamana(
         gen, r=16, l_build=24, n_shards=3, overlap=2, batch=1024,
@@ -109,11 +109,11 @@ def test_sharded_build_warm_degree_upgrade(gen):
     incremental-pass path used by the 100M R=64 rebuild): recall must beat
     the cold R=16 graph and structural invariants must hold (valid ids,
     no self-edges inside the degree prefix, compacted rows)."""
-    from bang_tpu.models.index import build_device_index
-    from bang_tpu.formats.graph import GraphIndex
-    from bang_tpu.models.exactdistance import search_exact
-    from bang_tpu.utils.config import SearchParams
-    from bang_tpu.utils.recall import calculate_recall
+    from bang_jax.models.index import build_device_index
+    from bang_jax.formats.graph import GraphIndex
+    from bang_jax.models.exactdistance import search_exact
+    from bang_jax.utils.config import SearchParams
+    from bang_jax.utils.recall import calculate_recall
 
     adj16, deg16, _ = bigbuild.build_sharded_vamana(
         gen, r=16, l_build=24, n_shards=3, overlap=2, batch=1024,

@@ -2,13 +2,14 @@
 
 The reference's headline is SIFT1B on one A100-80GB (Cost_Analysis.pdf p.2;
 bang_search.cu:311-328 keeps the 640 GB graph host-side and the PQ codes on
-device). A 16 GB v5e cannot hold 1B x m codes on one chip, so the TPU-native
-billion-point configuration is the chunk-sharded Base variant
+device). Next to tables and search state, 1B x m codes do not fit one
+80 GB card, so the billion-point configuration here is the chunk-sharded
+Base variant
 (parallel/base_tp.py): codes split over the mesh's 'model' axis, one psum
 per step. Real 1B arrays don't fit this box either — but the PROGRAM at 1B
 shapes is fully determined at trace time, so AOT-lowering it with
 ShapeDtypeStructs proves the billion-scale path traces, shards and compiles
-exactly as it would on a real pod slice (XLA allocates nothing at compile
+exactly as it would on real devices (XLA allocates nothing at compile
 time).
 """
 
@@ -18,14 +19,14 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from bang_tpu.models.base import BaseState
-from bang_tpu.parallel.base_tp import make_base_step_tp
+from bang_jax.models.base import BaseState
+from bang_jax.parallel.base_tp import make_base_step_tp
 
 SDS = jax.ShapeDtypeStruct
 
 N = 1_000_000_000  # SIFT1B
 D = 128
-M = 32  # PQ chunks (codes = 32 GB: > one v5e HBM, 8 GB/chip on the mesh)
+M = 32  # PQ chunks (codes = 32 GB; 4 GB per device on the 8-device mesh)
 R = 64  # reference MAX_R (bang_search.cu:35)
 Q = 1024  # one pipelined sub-batch
 L = 128
@@ -65,7 +66,7 @@ def test_base_tp_step_lowers_at_1b(model_axis):
         beam=BEAM,
     )
     hlo = lowered.as_text()
-    # the chunk-sharded lookup must reduce partial sums over ICI
+    # the chunk-sharded lookup must reduce partial sums across devices
     # (StableHLO spells it all_reduce; optimized HLO all-reduce)
     assert "all_reduce" in hlo or "all-reduce" in hlo, hlo[:800]
     # compile validates buffer assignment and the collective lowering; XLA
@@ -78,7 +79,7 @@ def test_single_chip_base_step_traces_at_1b():
     """The single-chip Base step (models/base.py) also traces at 1B shapes —
     eval_shape proves shape/dtype consistency of the full iteration at the
     reference's scale without allocating the 32 GB code matrix."""
-    from bang_tpu.models.base import _base_step
+    from bang_jax.models.base import _base_step
 
     out = jax.eval_shape(
         lambda s, nb, pf, qf, t, c: _base_step(
@@ -98,7 +99,7 @@ def test_single_chip_base_step_traces_at_1b():
 
 
 def _state_sds_bloom(q, l, max_iters, beam):
-    from bang_tpu.constants import BF_ENTRIES
+    from bang_jax.constants import BF_ENTRIES
 
     s = _state_sds(q, l, max_iters, beam)
     return s._replace(bloom=SDS((q, BF_ENTRIES), jnp.uint8))

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from bang_tpu.constants import DTYPE_FLOAT32, DTYPE_UINT8
-from bang_tpu.formats import (
+from bang_jax.constants import DTYPE_FLOAT32, DTYPE_UINT8
+from bang_jax.formats import (
     GraphIndex,
     load_bin,
     load_graph_index,
@@ -14,8 +14,8 @@ from bang_tpu.formats import (
     save_graph_index,
     save_truthset,
 )
-from bang_tpu.formats.pq import PQData, load_pq, save_pq
-from bang_tpu.formats import synthetic
+from bang_jax.formats.pq import PQData, load_pq, save_pq
+from bang_jax.formats import synthetic
 
 
 def test_bin_roundtrip(tmp_path):

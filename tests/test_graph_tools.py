@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from bang_tpu.utils.graph_tools import bfs_from, reachable_fraction, warmup_touch
+from bang_jax.utils.graph_tools import bfs_from, reachable_fraction, warmup_touch
 
 
 def ring_adj(n, r=2):
@@ -33,13 +33,15 @@ def test_reachable_fraction_disconnected():
 
 
 def test_warmup_touch(tiny_index):
-    from bang_tpu.models.index import device_index_from_files
+    from bang_jax.models.index import device_index_from_files
 
-    index = device_index_from_files(tiny_index["prefix"], variant="inmemory")
+    index = device_index_from_files(
+        tiny_index["prefix"], variant="inmemory", neighbor_codes=True
+    )
     touched = warmup_touch(index, n_nodes=500)
     assert touched == 500
     # neighbor_codes-mode indexes carry byte-plane adjacency, not the i32 table
-    from bang_tpu.ops.adjacency import decode_adj_planes
+    from bang_jax.ops.adjacency import decode_adj_planes
 
     adj = (np.asarray(decode_adj_planes(index.adj_planes))
            if index.adj is None else np.asarray(index.adj))
@@ -48,7 +50,7 @@ def test_warmup_touch(tiny_index):
 
 def test_warmup_touch_base_variant(tiny_index):
     """Base variant: BFS must walk the host-mmap graph (no device adj)."""
-    from bang_tpu.models.base import BaseVariantSearcher
+    from bang_jax.models.base import BaseVariantSearcher
 
     searcher = BaseVariantSearcher(tiny_index["prefix"])
     touched = warmup_touch(searcher, n_nodes=400)

@@ -11,13 +11,13 @@ on real hardware.
 import numpy as np
 import pytest
 
-from bang_tpu.formats import synthetic
-from bang_tpu.formats.graph import GraphIndex
-from bang_tpu.models.exactdistance import search_exact
-from bang_tpu.models.index import build_device_index
-from bang_tpu.models.inmemory import search_inmemory
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.formats import synthetic
+from bang_jax.formats.graph import GraphIndex
+from bang_jax.models.exactdistance import search_exact
+from bang_jax.models.index import build_device_index
+from bang_jax.models.inmemory import search_inmemory
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,7 @@ def test_large_l_inmemory_bloom_matches_exact(loaded):
 
 
 def test_max_l_accepted():
-    from bang_tpu.constants import MAX_L
+    from bang_jax.constants import MAX_L
 
     p = SearchParams(L=MAX_L, k=10)
     assert p.max_iters > MAX_L

@@ -3,13 +3,13 @@ GloVe-style workload (SURVEY.md §2: DistFunc MIPS, bang.h:26-33)."""
 
 import numpy as np
 
-from bang_tpu.formats import synthetic
-from bang_tpu.formats.graph import GraphIndex
-from bang_tpu.formats.preprocess import preprocess_data_mips, preprocess_queries_mips
-from bang_tpu.models.index import build_device_index
-from bang_tpu.models.exactdistance import search_exact
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.formats import synthetic
+from bang_jax.formats.graph import GraphIndex
+from bang_jax.formats.preprocess import preprocess_data_mips, preprocess_queries_mips
+from bang_jax.models.index import build_device_index
+from bang_jax.models.exactdistance import search_exact
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 def test_mips_search_recall():
@@ -52,7 +52,7 @@ def test_mips_pq_inmemory_recall():
     tables — measured, not a path bug; the reference similarly runs GloVe
     at CHUNKS=50, parANN.h:135-145)."""
     rng = np.random.default_rng(4)
-    from bang_tpu.models.inmemory import search_inmemory
+    from bang_jax.models.inmemory import search_inmemory
 
     n, d, k = 3000, 32, 10
     data = synthetic.make_clustered_data(n, d, n_clusters=12, seed=0)

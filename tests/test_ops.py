@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bang_tpu.constants import INVALID_ID
-from bang_tpu.formats import synthetic
-from bang_tpu.ops.bloom import bloom_insert, bloom_query
-from bang_tpu.ops.l2 import l2_distance_to_candidates
-from bang_tpu.ops.merge import init_worklist, merge_worklist, select_parents_beam
-from bang_tpu.ops.pq import prepare_pq_codebook, pq_distance_tables, pq_lookup
-from bang_tpu.ops.visited import exact_new_mask
+from bang_jax.constants import INVALID_ID
+from bang_jax.formats import synthetic
+from bang_jax.ops.bloom import bloom_insert, bloom_query
+from bang_jax.ops.l2 import l2_distance_to_candidates
+from bang_jax.ops.merge import init_worklist, merge_worklist, select_parents_beam
+from bang_jax.ops.pq import prepare_pq_codebook, pq_distance_tables, pq_lookup
+from bang_jax.ops.visited import exact_new_mask
 
 
 def pq_tables_oracle(pivots, centroid, offsets, queries):
@@ -177,7 +177,7 @@ def test_ops_jit_compile():
 
 
 def test_first_occurrence_blocks_matches_full():
-    from bang_tpu.ops.visited import first_occurrence_mask, first_occurrence_mask_blocks
+    from bang_jax.ops.visited import first_occurrence_mask, first_occurrence_mask_blocks
 
     rng = np.random.default_rng(7)
     cand = jnp.asarray(rng.integers(0, 30, (5, 4 * 6)).astype(np.int32))
@@ -200,8 +200,8 @@ def test_merge_worklist_ranked_matches_sort():
     chained merges (the worklist-sorted invariant)."""
     import jax.numpy as jnp
 
-    from bang_tpu.constants import INVALID_ID
-    from bang_tpu.ops.merge import (
+    from bang_jax.constants import INVALID_ID
+    from bang_jax.ops.merge import (
         init_worklist, merge_worklist, merge_worklist_ranked,
     )
 

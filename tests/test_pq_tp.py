@@ -3,13 +3,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from bang_tpu.ops.pq import pq_lookup
-from bang_tpu.parallel.pq_tp import (
+from bang_jax.ops.pq import pq_lookup
+from bang_jax.parallel.pq_tp import (
     pq_lookup_tp,
     shard_codes_by_chunk,
     shard_tables_by_chunk,
 )
-from bang_tpu.parallel.sharded import make_mesh
+from bang_jax.parallel.sharded import make_mesh
 
 
 def test_pq_lookup_tp_matches_single():

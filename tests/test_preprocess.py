@@ -5,9 +5,9 @@ import struct
 
 import numpy as np
 
-from bang_tpu.constants import DTYPE_FLOAT32
-from bang_tpu.formats.graph import load_graph_index, load_metadata
-from bang_tpu.formats.preprocess import SECTOR_LEN, convert_diskann_index
+from bang_jax.constants import DTYPE_FLOAT32
+from bang_jax.formats.graph import load_graph_index, load_metadata
+from bang_jax.formats.preprocess import SECTOR_LEN, convert_diskann_index
 
 
 def make_diskann_index(path, vecs, adj_lists, medoid):
@@ -82,8 +82,8 @@ def test_convert_diskann_index(tmp_path):
 
 
 def test_preprocess_cli_subcommands(tmp_path):
-    from bang_tpu.formats import preprocess as pp
-    from bang_tpu.formats.bin_io import load_bin, save_bin
+    from bang_jax.formats import preprocess as pp
+    from bang_jax.formats.bin_io import load_bin, save_bin
 
     rng = np.random.default_rng(1)
     q = rng.normal(size=(6, 5)).astype(np.float32)

@@ -5,15 +5,15 @@ library against the numpy fallback."""
 import numpy as np
 import pytest
 
-from bang_tpu.formats import load_bin, load_truthset
-from bang_tpu.models.base import BaseVariantSearcher
-from bang_tpu.native import (
+from bang_jax.formats import load_bin, load_truthset
+from bang_jax.models.base import BaseVariantSearcher
+from bang_jax.native import (
     gather_parents_numpy,
     gather_parents_native,
     native_available,
 )
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 @pytest.fixture(scope="module")
@@ -35,8 +35,8 @@ def test_base_recall(loaded):
 
 def test_base_matches_inmemory(loaded, tiny_index):
     """Base and Inmemory run the same algorithm; recall must be comparable."""
-    from bang_tpu.models.index import device_index_from_files
-    from bang_tpu.models.inmemory import search_inmemory
+    from bang_jax.models.index import device_index_from_files
+    from bang_jax.models.inmemory import search_inmemory
 
     searcher, queries, gt_ids, gt_dists = loaded
     params = SearchParams(L=48, k=10)
@@ -83,7 +83,7 @@ def test_raw_gather_matches_converted(tiny_index):
     """raw_vecs mode ships unconverted storage bytes; viewing them as the
     index dtype and casting must equal the f32-converting gather (the Base
     step relies on this to cut per-iteration H2D 4x for u8/i8 indices)."""
-    from bang_tpu.native import gather_parents
+    from bang_jax.native import gather_parents
 
     searcher = BaseVariantSearcher(tiny_index["prefix"])
     m = searcher.meta

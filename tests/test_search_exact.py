@@ -4,11 +4,11 @@
 import numpy as np
 import pytest
 
-from bang_tpu.formats import load_bin, load_truthset
-from bang_tpu.models.index import device_index_from_files
-from bang_tpu.models.exactdistance import search_exact
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.formats import load_bin, load_truthset
+from bang_jax.models.index import device_index_from_files
+from bang_jax.models.exactdistance import search_exact
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 @pytest.fixture(scope="module")
@@ -74,12 +74,10 @@ def test_exact_search_k1(loaded):
 
 def test_fused_exact_frontier_pack_decode():
     """Pack/decode round-trip of the fused exact-frontier rows, with ids
-    above 2^16 so every byte plane is exercised (a 32-wide Mosaic lane slice
-    once silently dropped plane 2 — see pq_pallas.pack_frontier_rows; this
-    layout is decoded in plain XLA but the data-coverage lesson stands)."""
+    above 2^16 so every byte plane is exercised."""
     import jax.numpy as jnp
 
-    from bang_tpu.ops.l2 import decode_exact_frontier_rows, pack_exact_frontier_rows
+    from bang_jax.ops.l2 import decode_exact_frontier_rows, pack_exact_frontier_rows
 
     rng = np.random.default_rng(7)
     n, r, d = 70_000, 8, 16
@@ -104,10 +102,10 @@ def test_fused_exact_frontier_pack_decode():
 
 
 def test_fused_exact_frontier_matches(tiny_uint8_index):
-    """Fused exact-frontier rows (opt-in; a measured perf dead end on v5e,
-    see models/index.py note) traverse identically to the scattered path."""
-    from bang_tpu.formats.graph import load_graph_index
-    from bang_tpu.models.index import build_device_index
+    """Fused exact-frontier rows (opt-in, see models/index.py) traverse
+    identically to the scattered path."""
+    from bang_jax.formats.graph import load_graph_index
+    from bang_jax.models.index import build_device_index
 
     prefix = tiny_uint8_index["prefix"]
     queries = load_bin(prefix + "_query.bin", np.uint8).astype(np.float32)[:64]
@@ -125,7 +123,7 @@ def test_fused_exact_frontier_matches(tiny_uint8_index):
 
 def test_neighbor_vectors_layout_matches(tiny_index):
     """nbr_vecs (gather-efficient layout) gives identical exact results."""
-    from bang_tpu.models.index import device_index_from_files
+    from bang_jax.models.index import device_index_from_files
 
     prefix = tiny_index["prefix"]
     queries = load_bin(prefix + "_query.bin", np.float32)[:64]
@@ -154,7 +152,7 @@ def test_sampled_entry_mode(loaded):
 
 
 def test_sampled_entry_mode_inmemory(tiny_index):
-    from bang_tpu.models.inmemory import search_inmemory
+    from bang_jax.models.inmemory import search_inmemory
 
     prefix = tiny_index["prefix"]
     index = device_index_from_files(prefix, variant="inmemory")
@@ -172,7 +170,7 @@ def test_sampled_entry_ids_unit():
     """sampled_entry_ids returns the argmin over the strided sample by true
     squared L2 (rank-only form drops the |q|^2 constant)."""
     import jax.numpy as jnp
-    from bang_tpu.models.entry import sampled_entry_ids
+    from bang_jax.models.entry import sampled_entry_ids
 
     rng = np.random.default_rng(0)
     vecs = rng.normal(size=(500, 16)).astype(np.float32)
@@ -196,7 +194,7 @@ def test_seeded_entry_survives_to_rerank():
     blocking the seeds' rediscovery loses nothing (round-3 advisor concern)."""
     import jax.numpy as jnp
 
-    from bang_tpu.models.traversal import (
+    from bang_jax.models.traversal import (
         make_exact_distance_fn, rerank_topk, run_traversal,
     )
 

@@ -4,11 +4,11 @@
 import numpy as np
 import pytest
 
-from bang_tpu.formats import load_bin, load_truthset
-from bang_tpu.models.index import device_index_from_files
-from bang_tpu.models.inmemory import search_inmemory
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.formats import load_bin, load_truthset
+from bang_jax.models.index import device_index_from_files
+from bang_jax.models.inmemory import search_inmemory
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 @pytest.fixture(scope="module")
@@ -56,7 +56,7 @@ def test_inmemory_bloom_mode(loaded):
 
 
 def test_inmemory_uint8(tiny_uint8_index):
-    from bang_tpu.formats.bin_io import load_bin_auto
+    from bang_jax.formats.bin_io import load_bin_auto
 
     prefix = tiny_uint8_index["prefix"]
     index = device_index_from_files(prefix, variant="inmemory")
@@ -69,7 +69,7 @@ def test_inmemory_uint8(tiny_uint8_index):
 
 def test_neighbor_codes_layout_matches(tiny_index):
     """nbr_codes (gather-efficient layout) gives identical results."""
-    from bang_tpu.models.index import device_index_from_files
+    from bang_jax.models.index import device_index_from_files
 
     prefix = tiny_index["prefix"]
     queries = load_bin(prefix + "_query.bin", np.float32)[:64]
@@ -85,12 +85,9 @@ def test_neighbor_codes_layout_matches(tiny_index):
 
 def test_fused_frontier_layout_matches(tmp_path):
     """Fused frontier rows (ONE gather per parent yields ids + distances)
-    give identical results to the plain scattered layout, incl. beam>1.
-
-    Uses R=64 — the fused layout requires R % 64 == 0 (Mosaic lane-slice
-    limitation; smaller R falls back to nbr_codes automatically)."""
-    from bang_tpu.formats import synthetic
-    from bang_tpu.models.index import device_index_from_files
+    give identical results to the plain scattered layout, incl. beam>1."""
+    from bang_jax.formats import synthetic
+    from bang_jax.models.index import device_index_from_files
 
     prefix = str(tmp_path / "fx")
     synthetic.build_synthetic_index(
@@ -100,8 +97,7 @@ def test_fused_frontier_layout_matches(tmp_path):
     idx_plain = device_index_from_files(prefix, neighbor_codes=False)
     idx_fused = device_index_from_files(prefix)  # default: fused when it fits
     assert idx_fused.fused_rows is not None and idx_plain.fused_rows is None
-    # fused rows carry the ids: the lane-padded i32 table must NOT be
-    # HBM-resident (it would add ~5.1 GB at the tuned-10M point)
+    # fused rows carry the ids: the i32 table must NOT be device-resident
     assert idx_fused.adj is None and idx_fused.adj_planes is None
     for beam in (1, 2):
         params = SearchParams(L=48, k=10, beam_width=beam)
@@ -111,22 +107,24 @@ def test_fused_frontier_layout_matches(tmp_path):
         np.testing.assert_allclose(np.asarray(d_a), np.asarray(d_b), rtol=1e-5)
 
 
-def test_fused_frontier_requires_r64(tiny_index):
-    """R not divisible by 64 falls back to nbr_codes (and pack raises)."""
-    from bang_tpu.models.index import device_index_from_files
-    from bang_tpu.ops.pq_pallas import pack_frontier_rows
-    import pytest as _pytest
+def test_fused_frontier_any_r(tiny_index):
+    """Fused rows have no degree restriction: the r=24 tiny index selects
+    them by default and searches exactly like the plain layout."""
+    from bang_jax.models.index import device_index_from_files
 
-    idx = device_index_from_files(tiny_index["prefix"])  # tiny index has r=24
-    assert idx.fused_rows is None and idx.nbr_codes is not None
-    with _pytest.raises(ValueError, match="R % 64"):
-        pack_frontier_rows(
-            np.zeros((10, 24), np.int32), np.zeros((10, 8), np.uint8)
-        )
+    prefix = tiny_index["prefix"]
+    idx = device_index_from_files(prefix)  # tiny index has r=24
+    assert idx.fused_rows is not None and idx.nbr_codes is None
+    idx_plain = device_index_from_files(prefix, neighbor_codes=False)
+    queries = load_bin(prefix + "_query.bin", np.float32)[:32]
+    params = SearchParams(L=32, k=10, beam_width=2)
+    ids_a, _, _ = search_inmemory(idx_plain, queries, params)
+    ids_b, _, _ = search_inmemory(idx, queries, params)
+    np.testing.assert_array_equal(np.asarray(ids_a), np.asarray(ids_b))
 
 
 def test_neighbor_codes_beam_matches(tiny_index):
-    from bang_tpu.models.index import device_index_from_files
+    from bang_jax.models.index import device_index_from_files
 
     prefix = tiny_index["prefix"]
     queries = load_bin(prefix + "_query.bin", np.float32)[:64]

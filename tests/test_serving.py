@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from bang_tpu.formats import load_bin, load_truthset
-from bang_tpu.harness.serving import SearchServer
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.formats import load_bin, load_truthset
+from bang_jax.harness.serving import SearchServer
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 def test_server_stream(tiny_index):
@@ -27,8 +27,8 @@ def test_server_stream(tiny_index):
 
 
 def test_device_batch_latency_probe(tiny_index):
-    from bang_tpu.harness.serving import measure_device_batch_latency
-    from bang_tpu.models.index import device_index_from_files
+    from bang_jax.harness.serving import measure_device_batch_latency
+    from bang_jax.models.index import device_index_from_files
 
     prefix = tiny_index["prefix"]
     queries = load_bin(prefix + "_query.bin", np.float32)[:32]

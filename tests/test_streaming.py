@@ -6,9 +6,9 @@ test thresholds mirror tests/test_vamana.py's build-quality pins."""
 import numpy as np
 import pytest
 
-from bang_tpu.constants import INVALID_ID
-from bang_tpu.models.streaming import StreamingIndex
-from bang_tpu.utils.config import SearchParams
+from bang_jax.constants import INVALID_ID
+from bang_jax.models.streaming import StreamingIndex
+from bang_jax.utils.config import SearchParams
 
 
 N, DIM, R = 3000, 24, 16
@@ -56,7 +56,7 @@ def test_streaming_insert_from_empty(data):
 @pytest.fixture(scope="module")
 def built(data):
     pts, _ = data
-    from bang_tpu.formats.vamana import build_vamana_graph
+    from bang_jax.formats.vamana import build_vamana_graph
 
     adj, deg, medoid = build_vamana_graph(
         pts[:2000], r=R, l_build=24, batch=500, verbose=False

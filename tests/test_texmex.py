@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from bang_tpu.formats import texmex
-from bang_tpu.formats.bin_io import load_bin, load_truthset
+from bang_jax.formats import texmex
+from bang_jax.formats.bin_io import load_bin, load_truthset
 
 
 def _write_vecs(path, arr):
@@ -77,10 +77,9 @@ def test_fabricated_corpus_full_pipeline(tmp_path):
     import sys
 
     rng = np.random.default_rng(9)
-    from bang_tpu.formats import synthetic
+    from bang_jax.formats import synthetic
 
-    n, dim, nq = 5000, 24, 200  # small: this test shares one CPU core with
-    # whatever the TPU build pipeline is doing host-side
+    n, dim, nq = 5000, 24, 200  # small: the child builds on the CPU
     data = synthetic.make_clustered_data(n, dim, n_clusters=32, seed=9).astype(
         np.float32
     )
@@ -101,12 +100,11 @@ def test_fabricated_corpus_full_pipeline(tmp_path):
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "scripts", "get_real_data.py",
     )
-    env = dict(os.environ)
-    env["BANG_FORCE_CPU"] = "1"  # hermetic: don't touch (or wait on) the TPU
+    # the child inherits JAX_PLATFORMS=cpu from tests/conftest.py
     out = subprocess.run(
         [sys.executable, script, "siftsmall", "--dir", str(root),
          "--skip-download", "--num-queries", str(nq)],
-        capture_output=True, text=True, timeout=1800, env=env,
+        capture_output=True, text=True, timeout=1800,
     )
     assert out.returncode == 0, out.stderr[-2000:]
     tsv = [l for l in out.stdout.splitlines() if "\t" in l and "recall" not in l]

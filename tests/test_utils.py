@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from bang_tpu.utils.config import SearchParams, DATASET_PRESETS
-from bang_tpu.utils.recall import calculate_recall
-from bang_tpu.utils.timer import CPUTimer, StageTimers
+from bang_jax.utils.config import SearchParams, DATASET_PRESETS
+from bang_jax.utils.recall import calculate_recall
+from bang_jax.utils.timer import CPUTimer, StageTimers
 
 
 def test_recall_perfect():
@@ -68,7 +68,7 @@ def test_search_stats_lazy_sync():
     """SearchStats defers the device fetch and caches after one sync."""
     import jax.numpy as jnp
 
-    from bang_tpu.models.traversal import SearchStats
+    from bang_jax.models.traversal import SearchStats
 
     st = SearchStats(jnp.int32(7), jnp.int32(21), jnp.int32(140))
     assert "unsynced" in repr(st)

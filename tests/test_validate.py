@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from bang_tpu.utils.validate import validate_index
+from bang_jax.utils.validate import validate_index
 
 
 def test_validate_good_index(tiny_index):
@@ -32,7 +32,7 @@ def test_validate_missing_metadata(tmp_path):
 
 
 def test_validate_reports_reachability(tiny_index):
-    from bang_tpu.utils.validate import validate_index
+    from bang_jax.utils.validate import validate_index
 
     rep = validate_index(tiny_index["prefix"])
     assert rep.ok

@@ -4,13 +4,13 @@ kNN+random baseline graph at equal degree."""
 import numpy as np
 import pytest
 
-from bang_tpu.formats import synthetic
-from bang_tpu.formats.graph import GraphIndex
-from bang_tpu.formats.vamana import build_vamana_graph
-from bang_tpu.models.index import build_device_index
-from bang_tpu.models.exactdistance import search_exact
-from bang_tpu.utils.config import SearchParams
-from bang_tpu.utils.recall import calculate_recall
+from bang_jax.formats import synthetic
+from bang_jax.formats.graph import GraphIndex
+from bang_jax.formats.vamana import build_vamana_graph
+from bang_jax.models.index import build_device_index
+from bang_jax.models.exactdistance import search_exact
+from bang_jax.utils.config import SearchParams
+from bang_jax.utils.recall import calculate_recall
 
 
 @pytest.fixture(scope="module")
